@@ -1,4 +1,4 @@
-"""jetracer_orbslam2_tpu — a TPU-native stereo/RGB-D visual SLAM framework.
+"""jetracer_orbslam2_tpu — a stereo/RGB-D visual SLAM framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 CUDA pipeline dsvua/jetracer-orbslam2 (surveyed in SURVEY.md):
@@ -12,7 +12,7 @@ CUDA pipeline dsvua/jetracer-orbslam2 (surveyed in SURVEY.md):
 - IMU complementary filter (reference: src/SlamGpuPipeline/SlamGpuPipeline.cpp:179-239)
 - and the back-end the reference only stubbed: keyframe/landmark map, local
   bundle adjustment (Schur-complement Levenberg–Marquardt), loop closure and
-  pose-graph optimization, shardable over TPU meshes (`parallel/`).
+  pose-graph optimization, shardable over device meshes (`parallel/`).
 
 Everything on the compute path is fixed-shape, batch-first JAX; hot kernels
 have Pallas implementations; the host runtime (event bus, pipeline executor,

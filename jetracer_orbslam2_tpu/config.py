@@ -1,12 +1,11 @@
-"""Static configuration for the TPU-native SLAM framework.
+"""Static configuration for the SLAM framework.
 
 The reference keeps its configuration in a single mutable struct shared by
 every thread (reference: src/Context.h:14-67) plus compile-time macros
 (src/SlamGpuPipeline/defines.h:1-28).  Here the equivalent is a tree of frozen
 dataclasses: every field that shapes a tensor is a Python int/float that
 becomes a static constant under `jax.jit`, so one config object pins the whole
-compiled program (fixed shapes are the TPU idiom — no dynamic allocation on
-the compute path).
+compiled program (fixed shapes: no dynamic allocation on the compute path).
 """
 
 from __future__ import annotations
@@ -123,13 +122,13 @@ class TrackingConfig:
     # far geometry is visible and tracking collapses exactly where the
     # sensor is noisiest (round-4 diagnosis: the bench lap lost frames
     # 49-61 staring at the 5 m wall; 0.01 tracked but sat on the margin,
-    # flipping between CPU and TPU arithmetic).
+    # flipping with last-bit differences in the arithmetic).
     ransac_depth_quad: float = 0.02     # m^-1
     # Gauss-Newton iterations of the motion-only reprojection polish
     # against the MAP (the ORB-SLAM2 TrackLocalMap step, slam.py
-    # track_and_associate).  Runs EVERY frame; measured cost on the bench
-    # lap ~45 fps of scan throughput for 11.5 cm of lap ATE (BASELINE.md
-    # round 5).  0 disables (3D-3D Kabsch only — the round-3 behavior).
+    # track_and_associate).  Runs EVERY frame; it buys ~11.5 cm of ATE on
+    # the bench lap (its GPU cost is not measured yet).  0 disables (3D-3D
+    # Kabsch only — the round-3 behavior).
     map_polish_iters: int = 5
     min_matches: int = 12
     min_inliers: int = 8

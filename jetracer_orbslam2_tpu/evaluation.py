@@ -2,7 +2,9 @@
 
 The reference has no evaluation at all (SURVEY.md §4); these are the standard
 TUM RGB-D benchmark metrics (Sturm et al.), implemented in jnp so they run on
-device and batch over trajectories.
+device and batch over trajectories.  They run at full f32 matmul precision
+(utils/precision.f32_estimation): a TF32 alignment would move every
+aligned position by millimeters.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import jax.numpy as jnp
 import jax
 
 from jetracer_orbslam2_tpu.ops import geometry as geo
+from jetracer_orbslam2_tpu.utils.precision import f32_estimation
 
 Array = jax.Array
 
@@ -25,6 +28,7 @@ class AteResult(NamedTuple):
     T_align: Array  # (4, 4) similarity/rigid alignment est -> gt
 
 
+@f32_estimation
 def umeyama_alignment(src: Array, dst: Array, with_scale: bool = False):
     """Least-squares similarity transform aligning (N,3) src to dst.
 
@@ -48,6 +52,7 @@ def umeyama_alignment(src: Array, dst: Array, with_scale: bool = False):
     return scale, R, t
 
 
+@f32_estimation
 def ate(est_poses: Array, gt_poses: Array, with_scale: bool = False) -> AteResult:
     """Absolute trajectory error after rigid (or Sim3) alignment.
 
@@ -68,6 +73,7 @@ def ate(est_poses: Array, gt_poses: Array, with_scale: bool = False) -> AteResul
     )
 
 
+@f32_estimation
 def rpe(est_poses: Array, gt_poses: Array, delta: int = 1):
     """Relative pose error over a fixed frame delta.
 
@@ -83,6 +89,7 @@ def rpe(est_poses: Array, gt_poses: Array, delta: int = 1):
     return jnp.sqrt(jnp.mean(trans ** 2)), jnp.sqrt(jnp.mean(rot ** 2))
 
 
+@f32_estimation
 def rpe_drift(est_poses: Array, gt_poses: Array, delta: int = 10):
     """Drift rate: relative-pose error normalized by distance traveled
     (the KITTI odometry convention — translational drift as a fraction of
@@ -108,6 +115,7 @@ def rpe_drift(est_poses: Array, gt_poses: Array, delta: int = 10):
     return jnp.sum(trans) / total, jnp.sum(rot) / total
 
 
+@f32_estimation
 def rpe_drift_median(est_poses: Array, gt_poses: Array, delta: int = 10):
     """Median per-segment drift ratio — robust to the tail of segments
     that cross tracking dropouts (motion-model freerun then re-lock),

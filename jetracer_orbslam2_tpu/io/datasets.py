@@ -56,13 +56,24 @@ def _to_gray(arr: np.ndarray) -> np.ndarray:
     return a[..., 0] * 0.21 + a[..., 1] * 0.72 + a[..., 2] * 0.07
 
 
+def _pil_image():
+    """PIL's Image module, imported only for the PNG variants the built-in
+    decoder does not handle (and for JPEG telemetry)."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            "decoding this image needs Pillow (PIL): the native PNG decoder "
+            "is not built (`make -C native`) or does not handle this PNG "
+            "variant; install Pillow or build the decoder") from e
+    return Image
+
+
 def _imread_gray(path: str) -> np.ndarray:
     arr = _read_png(path)
     if arr is not None:
         return _to_gray(arr)
-    from PIL import Image
-
-    img = Image.open(path)
+    img = _pil_image().open(path)
     if img.mode not in ("L", "I;16", "I"):
         img = img.convert("L")
     out = np.asarray(img)
@@ -75,9 +86,7 @@ def _imread_rgb_as_gray(path: str) -> np.ndarray:
     arr = _read_png(path)
     if arr is not None:
         return _to_gray(arr)
-    from PIL import Image
-
-    img = Image.open(path)
+    img = _pil_image().open(path)
     if img.mode == "L":
         return np.asarray(img).astype(np.float32)
     return _to_gray(np.asarray(img.convert("RGB")))
@@ -86,9 +95,7 @@ def _imread_rgb_as_gray(path: str) -> np.ndarray:
 def _imread_depth16(path: str, scale: float) -> np.ndarray:
     arr = _read_png(path)
     if arr is None:
-        from PIL import Image
-
-        arr = np.asarray(Image.open(path))
+        arr = np.asarray(_pil_image().open(path))
     return arr.astype(np.float32) * scale
 
 

@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 
 from jetracer_orbslam2_tpu.ops import geometry as geo
+from jetracer_orbslam2_tpu.utils.precision import f32_estimation
 
 Array = jax.Array
 
@@ -86,6 +87,7 @@ def _sample_texture(tex: Array, u: Array, v: Array, scale: float = 64.0) -> Arra
 
 
 @functools.partial(jax.jit, static_argnames=("shape", "dist", "dist_model"))
+@f32_estimation
 def render_frame(
     T_wc: Array,
     intrinsics: Array,
@@ -137,6 +139,7 @@ def render_frame(
     return best_val, depth
 
 
+@f32_estimation
 def lap_trajectory(
     n_frames: int,
     radius: float = 1.2,
@@ -198,6 +201,7 @@ def generate_lap_sequence(
     return SyntheticSequence(gray=gray, depth=depth, poses=poses, intrinsics=intr)
 
 
+@f32_estimation
 def smooth_trajectory(n_frames: int, step: float = 0.02, yaw_rate: float = 0.004) -> Array:
     """(N, 4, 4) T_wc poses: gentle forward arc with yaw + small sway."""
     i = jnp.arange(n_frames, dtype=jnp.float32)
@@ -220,6 +224,7 @@ class SyntheticStereoSequence(NamedTuple):
     baseline: float
 
 
+@f32_estimation
 def generate_stereo_sequence(
     n_frames: int = 10,
     shape: tuple = (480, 640),
@@ -258,6 +263,7 @@ def generate_stereo_sequence(
         intrinsics=intr, baseline=baseline)
 
 
+@f32_estimation
 def generate_stereo_lap_sequence(
     n_frames: int = 180,
     shape: tuple = (240, 320),

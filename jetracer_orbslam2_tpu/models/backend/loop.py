@@ -5,7 +5,7 @@ SURVEY.md §2, §7.1 item 10).  Pipeline:
 
   1. `retrieve`: batched cosine scores between the query keyframe's global
      descriptor (mean BRIEF bit vector, map.py:global_descriptor) and all
-     stored keyframes — a (1, 256) x (256, Kf) matvec, the BoW-free TPU
+     stored keyframes — a (1, 256) x (256, Kf) matvec, the BoW-free
      retrieval prefilter.
   2. `verify`: full K x K Hamming matching between the two keyframes'
      descriptors (ops/match.py — the same kernel the tracker uses) and

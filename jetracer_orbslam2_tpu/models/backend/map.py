@@ -3,11 +3,11 @@
 The reference DECLARED a map (unused `keyframe` member at
 src/SlamGpuPipeline/SlamGpuPipeline.h:53, SLAM keyframe knobs at
 src/Context.h:62-65) but never built one.  This is the real thing, designed
-TPU-first: preallocated device arrays with validity masks and monotonic
-counters; inserts are `dynamic_update_slice`s; queries are dense batched ops.
-No host-side per-landmark bookkeeping — the map IS a pytree of arrays, which
-also makes it trivially checkpointable (runtime/checkpoint.py) and shardable
-(parallel/).
+around fixed shapes: preallocated device arrays with validity masks and
+monotonic counters; inserts are `dynamic_update_slice`s; queries are dense
+batched ops.  No host-side per-landmark bookkeeping — the map IS a pytree
+of arrays, which also makes it trivially checkpointable
+(runtime/checkpoint.py) and shardable (parallel/).
 """
 
 from __future__ import annotations
@@ -279,6 +279,7 @@ def compact_map(m: MapState, min_obs: Array, min_age_kf: Array) -> MapState:
 
 
 @jax.jit
+@f32_estimation
 def compact_keyframes(
     m: MapState,
     redundancy: Array,      # f32: cull when >= this fraction of the KF's

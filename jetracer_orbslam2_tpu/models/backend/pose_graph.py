@@ -8,11 +8,11 @@ over the trajectory by minimizing
     sum_e || log( Z_e^-1 · T_i^-1 · T_j ) ||^2_Lambda
 
 over keyframe poses T (T_wc), where Z_e is the measured relative pose of
-edge (i, j).  TPU design: edges are a flat fixed-capacity list; the 6x6
+edge (i, j).  Design: edges are a flat fixed-capacity list; the 6x6
 Jacobian blocks are built batched with an analytic right-Jacobian
 approximation; H assembly is segment-sums into a dense (6P, 6P) system
-solved by Cholesky — for SLAM-scale P (hundreds) dense beats sparse on MXU
-hardware, same reasoning as models/backend/ba.py.
+solved by Cholesky — for SLAM-scale P (hundreds) dense beats sparse,
+same reasoning as models/backend/ba.py.
 """
 
 from __future__ import annotations

@@ -20,7 +20,7 @@ import jax.numpy as jnp
 
 from jetracer_orbslam2_tpu.config import FrontendConfig
 from jetracer_orbslam2_tpu.ops import (
-    align, fast, geometry as geo, nms, orb, pallas_fast, patches, preprocess)
+    align, fast, geometry as geo, nms, orb, patches, preprocess)
 from jetracer_orbslam2_tpu.ops.nms import Keypoints
 
 Array = jax.Array
@@ -59,12 +59,6 @@ def extract_features(
     levels = preprocess.build_pyramid(blurred, cfg.num_levels)
 
     def cell_winners(img, threshold):
-        # trace-time dispatch: fused VMEM-resident Pallas kernel on TPU
-        # (bit-exact vs the XLA path — see tests/test_pallas_fast.py)
-        if pallas_fast.use_pallas(img.shape):
-            resp = pallas_fast.fast_nms_response(
-                img, threshold, cfg.fast_arc_length, cfg.fast_border)
-            return nms.grid_nms(resp, cfg.cell_size, suppress=False)
         resp = fast.fast_score_map(
             img, threshold, cfg.fast_arc_length, cfg.fast_border)
         return nms.grid_nms(resp, cfg.cell_size)

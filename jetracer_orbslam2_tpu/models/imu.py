@@ -1,6 +1,6 @@
 """IMU attitude estimation: gyro integration + accel complementary filter.
 
-TPU-native equivalent of the reference's CPU filter
+Array-program equivalent of the reference's CPU filter
 (reference: src/SlamGpuPipeline/SlamGpuPipeline.cpp:179-239 —
 `process_gyro` integrates angular rate into Euler angles `theta`;
 `process_accel` extracts the gravity direction and blends with

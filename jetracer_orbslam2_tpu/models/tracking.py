@@ -11,7 +11,7 @@ Pose conventions: `T_ab` maps points from frame b to frame a
 (p_a = T_ab @ p_b).  World pose of a camera is `T_wc`; chaining:
 T_w_curr = T_w_prev @ T_prev_curr.
 
-TPU design notes:
+Design notes:
 - RANSAC is not a loop: all `iters` minimal 3-point hypotheses are solved in
   ONE batched Kabsch (jnp.linalg.svd over (iters, 3, 3)), scored in one
   (iters, K) residual matrix, and the winner refit on its inliers — two SVD
@@ -133,9 +133,9 @@ def ransac_kabsch(
     sample_idx = jax.random.categorical(key, logits, shape=(iters, 3))
     s = src[sample_idx]                      # (iters, 3, 3)
     d = dst[sample_idx]
-    # Horn-quaternion hypothesis solves: batched (iters,3,3) SVD cost
-    # ~1.1 ms on TPU (the whole front-end is 1.3 ms); power-iterated 4x4
-    # eigenvectors are pure VPU matvecs.  Winner refits below use exact SVD.
+    # Horn-quaternion hypothesis solves: closed-form elementwise math in
+    # place of a batched (iters,3,3) SVD (a batched-LAPACK call per
+    # frame).  Winner refits below use exact SVD.
     T_h = geo.kabsch_quat(s, d)              # (iters, 4, 4)
     # score all hypotheses against all correspondences
     src_t = jnp.einsum("bij,kj->bki", T_h[:, :3, :3], src) + T_h[:, None, :3, 3]

@@ -1,6 +1,6 @@
 """Device kernels (L1): fixed-shape, batch-first JAX/Pallas ops.
 
-Each module is the TPU-native equivalent of one reference CUDA kernel family
+Each module is the Array-program equivalent of one reference CUDA kernel family
 (see SURVEY.md §2.4):
 
 - preprocess: rgb_to_gray / gaussian_blur_3x3 / pyramid
@@ -8,7 +8,7 @@ Each module is the TPU-native equivalent of one reference CUDA kernel family
 - nms:        3x3 + grid non-max suppression, fixed-K selection
 - patches:    batched keypoint patch gather
 - orb:        orientation + rotated BRIEF-256
-- match:      MXU Hamming matching
+- match:      matmul Hamming matching
 - align:      depth->color alignment, backprojection
 - geometry:   SE(3), camera models, Kabsch
 """

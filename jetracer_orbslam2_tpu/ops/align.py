@@ -1,6 +1,6 @@
 """Depth->color alignment and keypoint backprojection.
 
-TPU-native re-design of the reference's librealsense-derived CUDA alignment
+Array-program re-design of the reference's librealsense-derived CUDA alignment
 (reference: src/cuda/cuda-align.cu — deproject depth pixels :121-187,
 atomicMin z-buffer scatter :224-255, reset passes :257-280, keypoint
 backprojection with stream compaction :282-364).
@@ -12,7 +12,7 @@ Design notes:
 - The reference's keypoint compaction (shared-mem warp counters + atomicAdd)
   becomes a validity mask on a fixed-K array.
 - The reference backprojects in double precision (cuda-align.cu:84-109); we
-  stay in f32 (TPU f64 is emulated) — depth cameras are mm-accurate at best,
+  stay in f32 (f64 is slow on GPUs) — depth cameras are mm-accurate at best,
   f32 carries that fine.
 - Fixes the reference's depth-lookup bug (pos.y used for both coordinates at
   cuda-align.cu:332).
@@ -80,9 +80,9 @@ def sample_depth(depth: Array, xy: Array, radius: int = 1) -> Array:
     Takes the minimum VALID depth in a (2r+1)^2 neighborhood (robust to the
     speckle holes typical of RGB-D sensors). Returns (K,) meters, 0 invalid.
 
-    TPU note: the naive formulation is (2r+1)^2 * K single-element gathers —
-    the slowest memory pattern on TPU.  Instead, min-pool the WHOLE depth
-    map once with `reduce_window` (a dense VPU stencil; inf-init padding at
+    The naive formulation is (2r+1)^2 * K single-element gathers.
+    Instead, min-pool the WHOLE depth map once with `reduce_window` (a
+    dense fused stencil; inf-init padding at
     the edges computes the min over the in-bounds subset, identical to
     per-neighbor clipping since clipped duplicates don't change a min) and
     gather a single element per keypoint.

@@ -1,15 +1,15 @@
-"""FAST corner response — branchless, whole-image, VPU-vectorized.
+"""FAST corner response — branchless, whole-image, vectorized.
 
-TPU-native re-design of the reference's FAST kernel
+Array-program re-design of the reference's FAST kernel
 (reference: src/cuda/fast.cu:150-287 per-pixel ring test with a 64K-entry
 contiguous-arc LUT built at src/cuda/fast.cu:11-39, parameters at
 src/SlamGpuPipeline/defines.h:7-9).
 
 Design notes (why this is not a translation):
-- The CUDA kernel is per-pixel with data-dependent early exits; on TPU the
+- The CUDA kernel is per-pixel with data-dependent early exits; here the
   whole image is processed as 16 shifted-image comparisons (one per Bresenham
-  ring offset), which XLA fuses into a single VPU pass.
-- The reference's 64K LUT (a gather per pixel) would serialize on TPU; the
+  ring offset), which XLA fuses into elementwise passes.
+- The reference's 64K LUT would be a gather per pixel; the
   contiguous-arc test is instead computed in O(log n) steps with the classic
   run-length doubling trick on a (16, H, W) boolean stack — pure elementwise
   AND/roll, no gathers, no divergence.

@@ -1,15 +1,15 @@
-"""Descriptor matching: batched Hamming distance on the MXU.
+"""Descriptor matching: batched Hamming distance as one matmul.
 
-TPU-native re-design of the reference matcher
+Array-program re-design of the reference matcher
 (reference: src/cuda/post_processing.cu:92-200 `kernel_match_keypoints` —
 brute-force prev<->curr matching gated by a reprojected pixel window, Hamming
 via `__popc(a ^ b)` on 32-bit truncated descriptors, shared-memory candidate
 tiles, atomic compaction of matched pairs at :177-198).
 
 Design notes:
-- XOR+popcount is a SIMT idiom. On TPU, Hamming distance between +-1-encoded
+- XOR+popcount is a SIMT idiom. Here, Hamming distance between +-1-encoded
   bit vectors is a matmul: dot(a_pm1, b_pm1) = bits - 2*hamming, so the whole
-  K x K distance matrix is one (K,256)@(256,K) bf16 MXU contraction — exact,
+  K x K distance matrix is one (K,256)@(256,K) bf16 contraction — exact,
   since all values are small integers.
 - Pixel-window gating becomes an additive penalty on the distance matrix;
   best/second-best/mutual-consistency selection are masked argmin rows — no
@@ -41,7 +41,7 @@ class Matches(NamedTuple):
 def hamming_matrix(desc_a: Array, desc_b: Array, num_bits: int = 256) -> Array:
     """(Ka, W) x (Kb, W) packed uint32 -> (Ka, Kb) float32 Hamming distances.
 
-    Encodes bits as +-1 bf16 and contracts on the MXU; the result is exact
+    Encodes bits as +-1 bf16 and contracts them in one matmul; exact
     (integer-valued, |values| <= num_bits, f32 accumulation).
     """
     a = (unpack_bits(desc_a, num_bits) * 2.0 - 1.0).astype(jnp.bfloat16)

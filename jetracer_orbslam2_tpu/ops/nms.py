@@ -1,6 +1,6 @@
 """Grid non-max suppression + fixed-K keypoint selection.
 
-TPU-native re-design of the reference's grid NMS
+Array-program re-design of the reference's grid NMS
 (reference: src/cuda/nms.cu:86-254 — per-line 3x3 spiral NMS in registers,
 warp shfl_down reductions, one winner per 32x32 cell) and of its
 atomic-compaction keypoint stream (src/cuda/cuda-align.cu:296-348).
@@ -11,8 +11,8 @@ Design notes:
 - One-winner-per-cell becomes a reshape to (rows, cell, cols, cell) and an
   argmax per cell — dense, no atomics.
 - The dynamic-length compaction the reference does with atomicAdd becomes a
-  static top-K over all cell winners with a validity mask: the TPU idiom for
-  "variable number of detections" is fixed K + mask.
+  static top-K over all cell winners with a validity mask: "variable number
+  of detections" becomes fixed K + mask.
 """
 
 from __future__ import annotations
@@ -59,17 +59,15 @@ def local_max_3x3(resp: Array) -> Array:
     return jnp.where(resp >= neighborhood, resp, 0.0)
 
 
-@functools.partial(jax.jit, static_argnames=("cell_size", "suppress"))
-def grid_nms(resp: Array, cell_size: int, suppress: bool = True) -> CellWinners:
-    """One winner per cell_size x cell_size cell of a response map.
+@functools.partial(jax.jit, static_argnames=("cell_size",))
+def grid_nms(resp: Array, cell_size: int) -> CellWinners:
+    """One winner per cell_size x cell_size cell of a 3x3-suppressed
+    response map.
 
     resp: (H, W) float32, zeros at non-corners. Returns flat (C,) winner SoA
-    where C = ceil(H/cell) * ceil(W/cell).  Pass suppress=False when the
-    response map is already 3x3-suppressed (the fused Pallas FAST kernel,
-    ops/pallas_fast.py, does it in-kernel).
+    where C = ceil(H/cell) * ceil(W/cell).
     """
-    if suppress:
-        resp = local_max_3x3(resp)
+    resp = local_max_3x3(resp)
     h, w = resp.shape
     rows = -(-h // cell_size)
     cols = -(-w // cell_size)

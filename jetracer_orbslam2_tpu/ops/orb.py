@@ -1,12 +1,12 @@
 """ORB: intensity-centroid orientation + rotated BRIEF-256 descriptors.
 
-TPU-native re-design of the reference kernels
+Array-program re-design of the reference kernels
 (reference: orientation src/cuda/orb.cu:77-142, descriptor src/cuda/orb.cu:17-75).
 
 Design notes:
 - Orientation: the CUDA kernel walks the 31x31 disc with per-row bounds and a
   warp reduction; here the disc moments are two masked tensor contractions
-  over the (K, P, P) patch stack — one fused VPU pass.
+  over the (K, P, P) patch stack — one fused elementwise pass.
 - Descriptor: instead of the reference's hand-tuned `bit_pattern_31_` table
   (orb.cuh:39-297) we generate our own fixed BRIEF pattern (isotropic
   Gaussian pairs per the BRIEF paper, deterministic seed).  Rotation is
@@ -84,7 +84,7 @@ def orientation(patches: Array, disc_radius: int = 15) -> Array:
     disc = (dx * dx + dy * dy) <= float(disc_radius * disc_radius)
     wx = jnp.where(disc, dx, 0.0)
     wy = jnp.where(disc, dy, 0.0)
-    # HIGHEST: bf16-rounded moments wobble angles near bin boundaries,
+    # HIGHEST: TF32/bf16-rounded moments wobble angles near bin boundaries,
     # making production descriptors diverge from the tested behavior.
     m10 = jnp.einsum("kij,ij->k", patches, wx,
                      precision=jax.lax.Precision.HIGHEST)
@@ -137,28 +137,28 @@ def describe(
 
     Each keypoint evaluates ONLY its own rotation bin (the reference walks
     one rotated pattern per keypoint, src/cuda/orb.cu:17-75; an earlier
-    design here computed all bins and one-hot-selected — 32x redundant MXU
-    work).  The per-bin pattern lookup is factored into dense ops:
+    design here computed all bins and one-hot-selected — 32x redundant
+    matmul work).  The per-bin pattern lookup is factored into dense ops:
 
       1. gather the bin's row-selector (K, 2N, P) from a tiny (B, 2N, P)
          constant table,
       2. one batched matmul row-select: (K, 2N, P) x (K, P, P) -> (K, 2N, P)
          rows of each patch at the pattern points' y coordinates,
-      3. a fused one-hot compare + reduce over the 37-wide column axis (VPU).
+      3. a fused one-hot compare + reduce over the 37-wide column axis.
 
     The row-select matmul runs at Precision.HIGHEST so pixel values are NOT
-    rounded to bf16 — the selected values are exact f32 pixels, and the BRIEF
-    bit is the exact sign of I(p1) - I(p2) (a one-hot matmul at HIGHEST
-    reconstructs the full f32 operand; default TPU precision would flip bits
-    for small post-blur differences).  The selection is ~1.4 GFLOP/frame at
-    K=1024 vs ~23 GFLOP for the all-bins formulation.
+    rounded to TF32 or bf16 — the selected values are exact f32 pixels, and
+    the BRIEF bit is the exact sign of I(p1) - I(p2) (a one-hot matmul at
+    HIGHEST reconstructs the full f32 operand; default GPU precision would
+    flip bits for small post-blur differences).  The selection is
+    ~1.4 GFLOP/frame at K=1024 vs ~23 GFLOP for the all-bins formulation.
     """
     k, p, _ = patches.shape
     rows_tab, cols_tab = _rot_row_col_tables(num_bits, p, num_angle_bins)
     bins = angle_bins(angles, num_angle_bins)
     rowsel = jnp.asarray(rows_tab)[bins]                # (K, 2N, P)
     col_idx = jnp.asarray(cols_tab)[bins]               # (K, 2N) int32
-    # batched row-select on the MXU: exact f32 (see docstring)
+    # batched row-select matmul: exact f32 (see docstring)
     selrows = jax.lax.dot_general(
         rowsel, patches,
         dimension_numbers=(((2,), (1,)), ((0,), (0,))),
@@ -178,7 +178,7 @@ def describe(
 
 
 def unpack_bits(desc: Array, num_bits: int = 256) -> Array:
-    """(K, W) uint32 -> (K, num_bits) float32 in {0, 1} (for MXU matching)."""
+    """(K, W) uint32 -> (K, num_bits) float32 in {0, 1} (matmul matching)."""
     k = desc.shape[0]
     shifts = jnp.arange(32, dtype=jnp.uint32)[None, None, :]
     bits = (desc[:, :, None] >> shifts) & jnp.uint32(1)

@@ -1,6 +1,6 @@
 """Keypoint overlay raster: burn marker dots into a grayscale frame.
 
-TPU-native equivalent of the reference's debug raster
+Array-program equivalent of the reference's debug raster
 (reference src/cuda/post_processing.cu:45-70 — kernel_overlay_keypoints
 draws a 2x2 white dot at each keypoint before JPEG encoding).  One masked
 scatter, fixed shapes; used by runtime.telemetry.TelemetryPublisher when

@@ -1,26 +1,23 @@
-"""Batched keypoint patch extraction, MXU-style.
+"""Batched keypoint patch extraction as row gathers plus one matmul.
 
 The reference's per-keypoint ops (ORB orientation at src/cuda/orb.cu:77-142,
 rotated BRIEF at src/cuda/orb.cu:17-75) each gather pixels around every
-keypoint independently.  The TPU idiom (SURVEY.md §7.4) is to gather a fixed
-square patch per keypoint ONCE, then express orientation and descriptors as
-dense tensor ops on the (K, P, P) patch stack.
+keypoint independently.  Here (SURVEY.md §7.4) a fixed square patch is
+gathered per keypoint ONCE, then orientation and descriptors are dense
+tensor ops on the (K, P, P) patch stack.
 
-TPU has no fast random-access gather; a naive `img[ys, xs]` advanced index
-(K * P * P single-element gathers) measured ~54 ms/frame — 90% of the whole
-pipeline.  This implementation instead:
+A naive `img[ys, xs]` advanced index is K * P * P single-element gathers.
+This implementation instead:
 
   1. Packs every pyramid level into ONE (sum_h, W) canvas (levels stacked
      vertically), so multi-level extraction is a single operation with a
      per-keypoint row offset — no per-level pass, no level blend.
   2. Gathers K*P full ROWS from the canvas (`jnp.take` along axis 0) —
-     row gathers move whole 128-lane vectors, which the VPU does well.
-  3. Selects the P columns of each patch with a batched one-hot matmul on
-     the MXU: patches = rows @ onehot(x_cols) — turning the awkward
-     lane-dimension gather into dense FLOPs, which are nearly free here
-     (~2 GFLOP/frame).
-
-Measured: 54 ms -> sub-ms for K=1024, P=37, 640x480x4 levels.
+     contiguous row copies.
+  3. Selects the P columns of each patch with a batched one-hot matmul:
+     patches = rows @ onehot(x_cols) — turning the column gather into
+     dense FLOPs (~2 GFLOP/frame).  Whether a plain gather is faster on
+     the GPU is not measured yet.
 """
 
 from __future__ import annotations
@@ -79,12 +76,12 @@ def extract_patches(levels: List[Array], kp: Keypoints, patch_size: int) -> Arra
     rows = jnp.take(canvas, ys.reshape(-1), axis=0)               # (K*P, W0)
     rows = rows.reshape(k, p, w0)
 
-    # 2) column selection as a batched one-hot matmul (MXU)
+    # 2) column selection as a batched one-hot matmul
     xs = xc[:, None] + offs[None, :]                              # (K, P)
     cols = jax.lax.broadcasted_iota(jnp.int32, (k, w0, p), 1)
     onehot = (cols == xs[:, None, :]).astype(rows.dtype)          # (K, W0, P)
     # HIGHEST so pixel values pass through un-rounded: a one-hot matmul at
-    # default TPU precision would round every pixel to bf16, silently
+    # default GPU precision would round every pixel to TF32, silently
     # corrupting the exact-compare BRIEF bits downstream (ops/orb.describe).
     return jax.lax.dot_general(
         rows, onehot,

@@ -1,14 +1,13 @@
 """Image preprocessing: RGB->gray, 3x3 Gaussian blur, halfsample pyramid.
 
-TPU-native equivalents of the reference CUDA kernels
+Array-program equivalents of the reference CUDA kernels
 (reference: src/cuda/cuda_RGB_to_Grayscale.cu:10-33,
 src/cuda/gaussian_blur_3x3.cu:15-73, src/cuda/pyramid.cu:7-84).
 
-These are elementwise / small-stencil ops: XLA fuses them into a single
-VPU-bound pass over the image, so they are expressed as plain jnp (a Pallas
-kernel buys nothing here — the front-end jit fuses gray+blur+level-0 response
-into one HBM read).  All functions take (..., H, W) float32 in [0, 255] (or
-[0,1]; the pipeline is scale-invariant) and are batch-friendly.
+These are elementwise / small-stencil ops: XLA fuses them into elementwise
+passes over the image, so they are expressed as plain jnp.  All functions
+take (..., H, W) float32 in [0, 255] (or [0,1]; the pipeline is
+scale-invariant) and are batch-friendly.
 """
 
 from __future__ import annotations
@@ -35,7 +34,7 @@ def gaussian_blur_3x3(img: Array) -> Array:
     """Separable [1 2 1]/4 x [1 2 1]/4 blur with edge-replicate borders.
 
     Matches the reference's 1-2-1^2/16 kernel (gaussian_blur_3x3.cu:15-73);
-    expressed as two shift-adds so XLA keeps it fused and VPU-bound.
+    expressed as two shift-adds so XLA keeps it in one elementwise fusion.
     """
     img = img.astype(jnp.float32)
 
@@ -62,8 +61,7 @@ def halfsample(img: Array) -> Array:
     if ph or pw:
         pad = [(0, 0)] * (img.ndim - 2) + [(0, ph), (0, pw)]
         img = jnp.pad(img, pad, mode="edge")
-    # reduce_window keeps the lane/sublane layout intact (a (h/2,2,w/2,2)
-    # reshape splits the 128-lane axis and costs ~4x in relayouts on TPU)
+    # 2x2 box sum as one reduce_window (no (h/2,2,w/2,2) reshape)
     window = (1,) * (img.ndim - 2) + (2, 2)
     s = jax.lax.reduce_window(img, 0.0, jax.lax.add, window, window, "VALID")
     return 0.25 * s

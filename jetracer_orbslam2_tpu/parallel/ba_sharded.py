@@ -15,8 +15,8 @@ The scaling recipe (north star; SURVEY.md §2.9, §7.4):
     independent of landmark count — that is what makes scaling efficiency
     >= 0.8 achievable at large maps.
   * Expressed with `shard_map` over `jax.sharding.Mesh`; the n=1 mesh runs
-    the identical program, so single-chip and pod builds share one code
-    path.
+    the identical program, so single-device and multi-device builds share
+    one code path.
 
 The per-slot math is imported from models/backend/ba.py (lm_run_dense with
 axis="lm") — the single-device and distributed solvers cannot drift apart.
@@ -42,9 +42,9 @@ Array = jax.Array
 class ShardedBAProblem(NamedTuple):
     """BA problem on the dense (P, L_pad) SoA grid for an n-device mesh.
 
-    The landmark axis (always LAST — TPU lanes) is padded to a multiple of
-    n_devices; device d owns columns [d*Lb, (d+1)*Lb).  Empty grid slots
-    carry w=0.
+    The landmark axis (always LAST, the contiguous one) is padded to a
+    multiple of n_devices; device d owns columns [d*Lb, (d+1)*Lb).  Empty
+    grid slots carry w=0.
     """
 
     poses: Array       # (P, 4, 4) replicated
@@ -97,11 +97,10 @@ def prepare_sharded_problem(
 
 
 @functools.partial(
-    jax.jit, static_argnames=("mesh", "axis", "cfg", "fused"))
+    jax.jit, static_argnames=("mesh", "axis", "cfg"))
 def _sharded_lm_run(
     poses, points, obs_uv, obs_z, obs_z_valid, obs_w, fixed, lm_valid,
     intrinsics, *, mesh: Mesh, axis: str, cfg: BAConfig,
-    fused=False,
 ) -> tuple[Array, Array, Array]:
     """The cached, jitted shard_map LM core (module-level so repeated live
     calls hit the jit cache instead of re-tracing a fresh closure).
@@ -110,12 +109,6 @@ def _sharded_lm_run(
     the SoA obs grids, axis 0 of points/lm_valid) is laid out so device d
     owns block d.  Returns (poses T_wc replicated, points sharded, cost
     trace).
-
-    fused: route each device's normal-equation assembly through the fused
-    Pallas kernels (ops/pallas_ba) with the pose-sized accumulators
-    psum'd — same O(P^2) communication, 1.7-3.8x less local HBM work
-    (standalone solves only; in-program callers keep the XLA path, see
-    models/slam.local_ba).
     """
     rep = P()
 
@@ -127,8 +120,7 @@ def _sharded_lm_run(
         obs = ba_core.DenseObs(uv=obs_uv, z=obs_z, z_valid=obs_z_valid,
                                w=obs_w)
         poses_cw, points, trace = ba_core.lm_run_dense(
-            poses_cw, points, obs, fixed, lm_valid, intr, cfg, axis=axis,
-            fused=fused)
+            poses_cw, points, obs, fixed, lm_valid, intr, cfg, axis=axis)
         return jax.vmap(geo.pose_inverse)(poses_cw), points, trace
 
     smapped = jax.shard_map(
@@ -136,10 +128,6 @@ def _sharded_lm_run(
         in_specs=(rep, P(axis), P(None, None, axis), P(None, axis),
                   P(None, axis), P(None, axis), rep, P(axis), rep),
         out_specs=(rep, P(axis), rep),
-        # pallas_call out_shapes carry no varying-across-mesh annotation;
-        # the fused path's correctness is pinned by the sharded-vs-XLA
-        # equivalence test instead (tests/test_ba_sharded.py)
-        check_vma=False,
     )
     with jax.default_matmul_precision("float32"):   # estimation path
         return smapped(
@@ -153,15 +141,14 @@ def sharded_bundle_adjust(
     cfg: BAConfig,
     mesh: Mesh,
     axis: str = "lm",
-    fused=False,
 ) -> tuple[Array, Array, Array]:
     """LM bundle adjustment over the mesh on a host-prepared problem
     (prepare_sharded_problem).  Returns (poses T_wc replicated, points
-    sharded, cost trace).  fused: see _sharded_lm_run."""
+    sharded, cost trace)."""
     return _sharded_lm_run(
         sprob.poses, sprob.points, sprob.obs_uv, sprob.obs_z,
         sprob.obs_z_valid, sprob.obs_w, sprob.fixed, sprob.lm_valid,
-        intrinsics, mesh=mesh, axis=axis, cfg=cfg, fused=fused)
+        intrinsics, mesh=mesh, axis=axis, cfg=cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -31,9 +31,8 @@ def init_distributed(
     caller proceeds identically either way: after this, `jax.devices()`
     spans every host and `make_mesh()` builds the global mesh.
 
-    This is the whole multi-host story on TPU: once processes are joined,
-    pjit/shard_map collectives ride ICI within a slice and DCN across
-    slices with no further application code (SURVEY.md §2.9).
+    Once processes are joined, shard_map collectives span every host's
+    devices with no further application code (SURVEY.md §2.9).
     """
     explicit = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS")
@@ -48,19 +47,25 @@ def init_distributed(
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "lm") -> Mesh:
-    """A 1-D mesh over the first `n_devices` available devices (global
-    across hosts after init_distributed)."""
+    """A 1-D mesh over the first `n_devices` devices of the default
+    backend (global across hosts after init_distributed).  Raises when
+    fewer than `n_devices` exist: a mesh never silently shrinks or moves
+    to another platform."""
     devs = jax.devices()
     if n_devices is not None:
+        if len(devs) < n_devices:
+            raise RuntimeError(
+                f"need {n_devices} devices, have {len(devs)} "
+                f"{jax.default_backend()}")
         devs = devs[:n_devices]
     return Mesh(np.asarray(devs), (axis,))
 
 
 def virtual_mesh(n_devices: int, axis: str = "lm") -> Mesh:
-    """A mesh that prefers real accelerators but falls back to virtual CPU
-    devices when the host has fewer than `n_devices` chips — WITHOUT
-    pinning the process platform to CPU (the round-1 dryrun did, breaking
-    any later TPU work in the same process).
+    """A correctness-only mesh: real devices when the host has
+    `n_devices`, else virtual CPU devices, without pinning the process
+    platform to CPU.  For tests and `__graft_entry__.dryrun_multichip`;
+    the CLI and benchmarks use `make_mesh`, which never falls back.
 
     jax_num_cpu_devices only takes effect before the CPU backend
     initializes; if it is too late and the CPU backend is smaller than

@@ -27,7 +27,7 @@ log = logging.getLogger("jetracer_orbslam2_tpu")
 
 
 def build_argparser():
-    p = argparse.ArgumentParser(description="TPU-native SLAM runner")
+    p = argparse.ArgumentParser(description="SLAM runner")
     p.add_argument("--dataset", help="TUM / EuRoC mav0 / KITTI sequence dir")
     p.add_argument("--synthetic", type=int, default=0,
                    help="run on N synthetic frames instead of a dataset")
@@ -51,8 +51,8 @@ def build_argparser():
                         "(ORB-SLAM2 minThFAST; 7 recommended for "
                         "low-texture scenes, 0 = off)")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="shard the map backend over an N-device mesh "
-                        "(real chips when available, virtual CPU otherwise)")
+                   help="shard the map backend over an N-device mesh of "
+                        "the default backend (fails with fewer devices)")
     p.add_argument("--distributed", action="store_true",
                    help="join a multi-host cluster first "
                         "(JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / "
@@ -201,6 +201,11 @@ def main(argv=None) -> int:
         print("need --dataset or --synthetic", file=sys.stderr)
         return 2
 
+    from jetracer_orbslam2_tpu.utils.compile_cache import (
+        configure_compile_cache)
+
+    configure_compile_cache()
+
     if args.distributed:
         from jetracer_orbslam2_tpu.parallel.mesh import init_distributed
 
@@ -273,9 +278,9 @@ def main(argv=None) -> int:
             tracking=tcfg, stereo=stereo_cfg)
         mesh = None
         if args.mesh:
-            from jetracer_orbslam2_tpu.parallel.mesh import virtual_mesh
+            from jetracer_orbslam2_tpu.parallel.mesh import make_mesh
 
-            mesh = virtual_mesh(args.mesh)
+            mesh = make_mesh(args.mesh)
         ch = ChunkedSlam(cfg, intr, chunk_size=args.chunked, mesh=mesh)
         t0 = time.perf_counter()
         count = 0
@@ -321,9 +326,9 @@ def main(argv=None) -> int:
 
     mesh = None
     if args.mesh:
-        from jetracer_orbslam2_tpu.parallel.mesh import virtual_mesh
+        from jetracer_orbslam2_tpu.parallel.mesh import make_mesh
 
-        mesh = virtual_mesh(args.mesh)
+        mesh = make_mesh(args.mesh)
         log.info("map backend sharded over %d-device mesh (%s)",
                  args.mesh, mesh.devices.flat[0].platform)
 

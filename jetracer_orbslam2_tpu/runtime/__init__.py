@@ -1,6 +1,6 @@
 """Host runtime: frame pipeline, checkpointing, CLI, telemetry.
 
-The TPU-native analogue of the reference's L1/L2 runtime — the event-bus
+The analogue of the reference's L1/L2 runtime — the event-bus
 worker threads (src/EventsThread.{h,cpp}), the frame scheduler
 (src/SlamGpuPipeline/SlamGpuPipeline.cpp) and the WebSocket telemetry
 server (src/WebSocket/WebSocketCom.cpp) — rebuilt as a thin asynchronous

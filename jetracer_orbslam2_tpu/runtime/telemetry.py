@@ -266,9 +266,9 @@ class TelemetryPublisher:
     def _jpeg(self, gray: np.ndarray) -> bytes:
         import io as _io
 
-        from PIL import Image
+        from jetracer_orbslam2_tpu.io.datasets import _pil_image
 
         buf = _io.BytesIO()
-        Image.fromarray(gray.astype(np.uint8)).save(
+        _pil_image().fromarray(gray.astype(np.uint8)).save(
             buf, format="JPEG", quality=self.jpeg_quality)
         return buf.getvalue()

@@ -1,6 +1,6 @@
 """Per-stage wall-clock timing with min/max/avg statistics.
 
-TPU-native equivalent of the reference's profiling machinery: the manual
+Array-program equivalent of the reference's profiling machinery: the manual
 chrono spans around the GPU loop (reference:
 src/SlamGpuPipeline/buildStream.cpp:372-373,624-633,657-665) and vilib's
 DetectorBenchmark Timer/TimerGPU/Statistics

@@ -7,8 +7,7 @@ strong-scaling efficiency on the synthetic map).
 Prints one row per mesh size: ms per LM iteration and strong-scaling
 efficiency t(1) / (n * t(n)), plus a JSON summary line.  On the virtual CPU
 mesh the timings validate the harness and the communication structure, not
-TPU performance; the recorded TPU numbers in BASELINE.md come from running
-this on real hardware (n=1 today — multi-chip pending hardware).
+device performance; device numbers come from running this on GPUs.
 """
 
 from __future__ import annotations

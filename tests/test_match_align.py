@@ -1,4 +1,4 @@
-"""Tests for MXU Hamming matching and depth alignment."""
+"""Tests for matmul Hamming matching and depth alignment."""
 
 import numpy as np
 import jax.numpy as jnp

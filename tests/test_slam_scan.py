@@ -222,7 +222,7 @@ def test_stereo_slam_scan_tracks_synthetic_rig():
     # stereo depth at CPU-test resolution quantizes hard (fx=216 px,
     # 11 cm baseline -> sigma_z ~ 5%*z at 4 m): this gate checks the
     # system TRACKS through the scan path; the accuracy number that
-    # matters is the gated 640x480 TPU benchmark (bench.py, 17 cm)
+    # matters is the gated 640x480 benchmark (bench.py, 15 cm gate)
     assert r < 0.50, f"stereo scan ATE {r:.3f} m"
 
 
